@@ -1,8 +1,8 @@
-"""fastx_toolkit_tpu — a TPU-native FASTA/FASTQ read-preprocessing framework.
+"""fastx_toolkit_tpu — a FASTA/FASTQ read-preprocessing framework in JAX.
 
 A from-scratch re-design of the capabilities of FASTX-Toolkit
-(reference: /root/reference, agordon/fastx_toolkit v0.0.14) built on
-jax/XLA/pallas:
+(reference: agordon/fastx_toolkit v0.0.14) built on jax/XLA, running
+on NVIDIA GPUs or JAX's CPU backend:
 
 * Records are parsed once (host, vectorized numpy / native codec) into a
   ``ReadBatch`` of padded int8 tensors (``bases [B,L]``, ``quals [B,L]``,
@@ -10,7 +10,7 @@ jax/XLA/pallas:
 * Every per-read tool of the reference is a pure, vmapped/jitted batch
   transform over the ReadBatch (see ``fastx_toolkit_tpu.ops``).
 * The adapter clipper's DP alignment is an integer-scaled dynamic program
-  (Pallas / lax.scan) reproducing the reference scoring exactly
+  (lax.scan) reproducing the reference scoring exactly
   (see ``fastx_toolkit_tpu.kernels.align``).
 * Reductions (quality stats, collapser counts, barcode tallies) are
   device-side scatter-adds merged across hosts with ``psum``/all-gather

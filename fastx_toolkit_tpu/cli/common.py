@@ -280,6 +280,25 @@ def report_stream(ctx: CliContext, common: CommonArgs):
     return ctx.stdout_text if common.report_to_stdout else ctx.stderr
 
 
+# JAX's persistent compile cache when JAX_COMPILATION_CACHE_DIR is unset:
+# a fixed directory inside the checkout (the path is part of the key)
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
+
+
+def configure_compile_cache() -> None:
+    """Keep JAX's persistent compile cache in COMPILE_CACHE_DIR unless
+    JAX_COMPILATION_CACHE_DIR is set (JAX reads that variable itself), so
+    repeated CLI invocations reuse compiled programs."""
+    import jax
+
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
 def run_tool_main(tool_main: Callable[[CliContext, list], int], argv=None) -> int:
     """Process-level wrapper: maps FastxError/ExitWithStatus to exit codes."""
     from ..parallel import multihost
@@ -287,39 +306,7 @@ def run_tool_main(tool_main: Callable[[CliContext, list], int], argv=None) -> in
     # multi-host process group (FASTX_TPU_COORDINATOR/...) must come up
     # before any jax backend is touched
     multihost.initialize()
-    try:
-        # persistent compile cache: repeated CLI invocations on TPU reuse
-        # jitted programs instead of recompiling per process
-        import jax
-
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                           os.path.expanduser("~/.cache/jax_comp")),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-    try:
-        # if the preferred accelerator backend can't initialize (remote
-        # device plugin down, driver mismatch, ...), degrade to CPU with
-        # a warning instead of crashing — output is identical either way
-        import jax
-
-        jax.devices()
-    except RuntimeError:
-        try:
-            jax.config.update("jax_platforms", "cpu")
-            jax.devices()
-            print(
-                "%s: accelerator backend unavailable, running on CPU"
-                % os.path.basename(sys.argv[0]),
-                file=sys.stderr,
-            )
-        except Exception:
-            pass
-    except Exception:
-        pass
+    configure_compile_cache()
     ctx = CliContext(prog=os.path.basename(sys.argv[0]))
     args = list(sys.argv[1:] if argv is None else argv)
     try:

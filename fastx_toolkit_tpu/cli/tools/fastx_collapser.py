@@ -50,10 +50,10 @@ USAGE = (
 
 
 def collapse_path() -> str:
-    """FASTX_COLLAPSE_PATH=host|device overrides the shared link-aware
-    policy (engine.policy: device sort+segment-reduce on a PCIe-local
-    chip, native sharded hash on a tunnel/CPU rig).  Outputs are
-    identical either way (tests/test_host_native.py)."""
+    """FASTX_COLLAPSE_PATH=host|device overrides the shared backend
+    policy (engine.policy: device sort+segment-reduce or the native
+    sharded hash).  Outputs are identical either way
+    (tests/test_host_native.py)."""
     from ...engine import policy
 
     return policy.resolve("collapse", os.environ.get("FASTX_COLLAPSE_PATH"))

@@ -86,9 +86,8 @@ def tool_main(ctx: CliContext, argv) -> int:
     path = stats_ops.stats_path()
     allowed = codec.allowed_table_u8() if path == "host" else None
     for chunk, line_base in reader.iter_chunks():
-        # link-aware dispatch (see stats_ops.stats_path): the host C++
-        # histogram kernel avoids shipping raw quality bytes over a thin
-        # device link; the device path wins on a PCIe-local chip.
+        # engine choice (see stats_ops.stats_path): the host C++
+        # histogram kernel or the device scatter-add reduction
         parts = None
         if (path == "host" and reader.is_fastq
                 and not os.environ.get("FASTX_TPU_NO_LINEPATH")):
@@ -123,7 +122,7 @@ def tool_main(ctx: CliContext, argv) -> int:
                 )
             else:
                 (bases, quals, lengths, counts), nb = to_device(batch)
-                parts = stats_ops.accumulate_dispatch(
+                parts = stats_ops.accumulate_jit(
                     bases, quals, lengths, counts, is_fastq=batch.is_fastq
                 )
         acc.merge_partial(*[np.asarray(p) for p in parts])

@@ -46,20 +46,11 @@ from .pipeline import (
 
 CHUNK = int(os.environ.get("FASTX_TPU_CHUNK", 262144))
 
-# env knobs whose values are read while TRACING the decisions step
-# (kernel selection, tile/unroll tuning, the tie-fix default).  The
-# jitted programs LineEngines memoizes bake these in, so the memo must
-# be invalidated when any of them changes mid-process (tests and
-# differential harnesses toggle them) — the same executable-cache rule
-# align_batch_pallas_packed applies via static args.
-_TRACE_ENV_KNOBS = (
-    "FASTX_TPU_NO_P12",
-    "FASTX_TPU_P12_UNROLL",
-    "FASTX_TPU_PACKED_TILE",
-    "FASTX_TPU_NO_PACKED_DECIDE",
-    "FASTX_TPU_PACKED_DECIDE",
-    "FASTX_TPU_NO_TIE_FIX",
-)
+# env knobs whose values are read while TRACING the decisions step (the
+# tie-fix default).  The jitted programs LineEngines memoizes bake these
+# in, so the memo must be invalidated when any of them changes
+# mid-process (tests and differential harnesses toggle them).
+_TRACE_ENV_KNOBS = ("FASTX_TPU_NO_TIE_FIX",)
 
 
 def _trace_env_snapshot():

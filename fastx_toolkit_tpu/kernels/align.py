@@ -271,7 +271,7 @@ def align_batch(bases, lengths, adapter: bytes, tie_flag: bool = False):
     not actually diverge) and propagates along paths: a fragile
     resolution taints every later cell whose stats inherited it.
 
-    TPU-first design: instead of materializing an origin matrix and
+    Design: instead of materializing an origin matrix and
     walking it backwards per read (the reference's traceback,
     sequence_alignment.cpp:496-604 — a serial pointer chase), every DP
     cell carries its PATH STATISTICS forward: (matches, mismatches, gaps,

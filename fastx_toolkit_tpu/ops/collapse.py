@@ -84,10 +84,8 @@ def collapse_hashed(words, counts, first_idx, weak_hash: bool = False,
     Segment boundaries come from material CARRIED THROUGH THE SORT as
     payload — the first two true word columns (the reads' first 8 bytes)
     plus a second independent 64-bit hash family (h3, h4) — replacing
-    the round-4 post-sort ``words[perm]`` row-gather + exact compare:
-    XLA row-gathers serialize per element on TPU and that gather alone
-    was ~60% of the kernel's runtime (BASELINE.md round 5).  Failure
-    analysis:
+    a post-sort ``words[perm]`` row-gather + exact compare, so the sort
+    is the only pass that moves whole rows.  Failure analysis:
 
     * equal sequences can never split (all carried material is a
       function of the words);

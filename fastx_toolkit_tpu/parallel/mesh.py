@@ -9,8 +9,8 @@ global operators:
   parallel, sharded over the batch axis of a 1-D ``Mesh(('data',))``;
   no communication at all.
 * fastx_quality_stats — per-shard scatter-add histograms merged with
-  ``psum``/``pmin``/``pmax`` over 'data' (ICI within a slice, DCN across
-  slices when the mesh spans hosts).
+  ``psum``/``pmin``/``pmax`` over 'data' (NVLink within a host, the
+  network across hosts).
 * fastx_collapser — per-shard sort+segment dedup, then an all-gather of
   (key words, counts) and a re-collapse (associative merge).
 * barcode splitter — sharded hamming matrix + argmin; per-barcode counts
@@ -144,8 +144,8 @@ def sharded_packed_pipeline(mesh: Mesh, cfg=None, *, two_bit: bool = True,
     """sharded_pipeline over the packed host->device representation
     (engine.pipeline.pack_batch/pack_batch2: 2- or 4-bit bases + 1-bit
     quality threshold planes).  On a pod each host packs its own input
-    shard, so the per-host PCIe/ICI feed carries ~4x fewer bytes; the
-    device step unpacks with a few VPU ops and psums the stats counts
+    shard, so the host-to-device feed carries ~4x fewer bytes; the
+    device step unpacks with a few shift/mask ops and psums the stats counts
     over 'data' exactly like the unpacked variant.
 
     Returns a jitted fn (packed_bases, planes, lengths, counts) ->

@@ -24,7 +24,7 @@ FASTX_INPUT = '<param format="fastqsanger,fastq,fasta" name="input" type="data" 
 # (id, name, description, command, inputs, outputs_format, tests)
 TOOLS = [
     ("cshl_fastq_to_fasta_tpu", "FASTQ to FASTA",
-     "converter (TPU engine)",
+     "converter (JAX engine)",
      "cat '$input' |\nfastq_to_fasta\n" + Q_SWITCH + "\n $SKIPN $RENAMESEQ -o '$output' -v",
      FASTX_INPUT + """
 		<param name="SKIPN" type="select" label="Discard sequences with unknown (N) bases">
@@ -40,7 +40,7 @@ TOOLS = [
       ({"input": "fastq_to_fasta1.fastq", "SKIPN": "-n", "RENAMESEQ": "-r"}, "fastq_to_fasta1b.out")]),
 
     ("cshl_fastq_quality_converter_tpu", "Quality format converter",
-     "(ASCII-Numeric) (TPU engine)",
+     "(ASCII-Numeric) (JAX engine)",
      "cat '$input' |\nfastq_quality_converter $QUAL_FORMAT -o '$output' -Q $offset",
      """<param format="fastqsanger,fastq" name="input" type="data" label="Library to convert" />
 		<param name="QUAL_FORMAT" type="select" label="Desired output format">
@@ -55,7 +55,7 @@ TOOLS = [
       ({"input": "fastq_qual_conv2.fastq", "QUAL_FORMAT": "-n", "offset": "64"}, "fastq_qual_conv2n.out")]),
 
     ("cshl_fastq_quality_filter_tpu", "Filter by quality",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastq_quality_filter\n" + Q_SWITCH + "\n -q $quality -p $percent -v -o '$output'",
      """<param format="fastqsanger,fastq" name="input" type="data" label="Library to filter" />
 		<param name="quality" type="integer" value="20" label="Quality cut-off value" />
@@ -65,7 +65,7 @@ TOOLS = [
       ({"input": "fastq_qual_filter1.fastq", "quality": "20", "percent": "80"}, "fastq_qual_filter1b.out")]),
 
     ("cshl_fastq_quality_trimmer_tpu", "Quality trimmer",
-     "trim 3' low-quality run (TPU engine)",
+     "trim 3' low-quality run (JAX engine)",
      "cat '$input' |\nfastq_quality_trimmer\n" + Q_SWITCH + "\n -v -t $cutoff -l $minlen -o '$output'",
      """<param format="fastqsanger,fastq" name="input" type="data" label="Library to trim" />
 		<param name="cutoff" type="integer" value="20" label="Quality cut-off value" />
@@ -74,7 +74,7 @@ TOOLS = [
      [({"input": "fastq_quality_trimmer.fastq", "cutoff": "30", "minlen": "16"}, "fastq_quality_trimmer.out")]),
 
     ("cshl_fastq_masker_tpu", "Mask low-quality bases",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastq_masker\n" + Q_SWITCH + "\n -v -q $cutoff -r '$maskchar' -o '$output'",
      """<param format="fastqsanger,fastq" name="input" type="data" label="Library to mask" />
 		<param name="cutoff" type="integer" value="20" label="Quality cut-off value" />
@@ -83,7 +83,7 @@ TOOLS = [
      [({"input": "fastq_masker.fastq", "cutoff": "29", "maskchar": "x"}, "fastq_masker.out")]),
 
     ("cshl_fastx_trimmer_tpu", "Trim sequences",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastx_trimmer\n" + Q_SWITCH + "\n -v -f $first -l $last -o '$output'",
      FASTX_INPUT + """
 		<param name="first" type="integer" value="1" label="First base to keep" />
@@ -93,7 +93,7 @@ TOOLS = [
       ({"input": "fastx_trimmer2.fastq", "first": "1", "last": "27"}, "fastx_trimmer2.out")]),
 
     ("cshl_fastx_trimmer_from_end_tpu", "Trim sequences from 3' end",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastx_trimmer\n" + Q_SWITCH + "\n -v -t $trimnum -m $minlen -o '$output'",
      FASTX_INPUT + """
 		<param name="trimnum" type="integer" value="2" label="Number of 3' bases to trim" />
@@ -102,7 +102,7 @@ TOOLS = [
      [({"input": "fastx_trimmer_from_end1.fasta", "trimnum": "2", "minlen": "16"}, "fastx_trimmer_from_end1.out")]),
 
     ("cshl_fastx_clipper_tpu", "Clip adapter sequences",
-     "(TPU Pallas DP engine)",
+     "(JAX DP engine)",
      "cat '$input' |\nfastx_clipper\n" + Q_SWITCH + "\n -l $minlength -a '$clip_source.clip_sequence' -d $keepdelta -o '$output' -v $KEEP_N $DISCARD_OPTIONS",
      FASTX_INPUT + """
 		<param name="minlength" type="integer" value="15" label="Minimum sequence length (after clipping)" />
@@ -140,7 +140,7 @@ TOOLS = [
         "KEEP_N": "-n", "DISCARD_OPTIONS": "-c"}, "fastx_clipper1a.out")]),
 
     ("cshl_fastx_artifacts_filter_tpu", "Remove sequencing artifacts",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastx_artifacts_filter\n" + Q_SWITCH + "\n -v -o '$output'",
      FASTX_INPUT,
      "input",
@@ -148,7 +148,7 @@ TOOLS = [
       ({"input": "fastx_artifacts2.fastq"}, "fastx_artifacts2.out")]),
 
     ("cshl_fastx_reverse_complement_tpu", "Reverse-Complement",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastx_reverse_complement\n" + Q_SWITCH + "\n -v -o '$output'",
      FASTX_INPUT,
      "input",
@@ -156,21 +156,21 @@ TOOLS = [
       ({"input": "fastx_rev_comp2.fastq"}, "fastx_reverse_complement2.out")]),
 
     ("cshl_fastx_collapser_tpu", "Collapse",
-     "sequences (TPU sort+segment-reduce)",
+     "sequences (sort+segment-reduce)",
      "cat '$input' |\nfastx_collapser\n" + Q_SWITCH + "\n -v -o '$output'",
      FASTX_INPUT,
      "fasta",
      [({"input": "fasta_collapser1.fasta"}, "fasta_collapser1.out")]),
 
     ("cshl_fastx_uncollapser_tpu", "Uncollapse",
-     "sequences (TPU engine)",
+     "sequences (JAX engine)",
      "cat '$input' |\nfastx_uncollapser -v -o '$output'",
      '<param format="fasta" name="input" type="data" label="Library to uncollapse" />',
      "fasta",
      [({"input": "fasta_uncollapser1.fasta"}, "fasta_uncollapser1.out")]),
 
     ("cshl_seqid_uncollapser_tpu", "Uncollapse tabular",
-     "sequence ids in tabular files (TPU engine)",
+     "sequence ids in tabular files (JAX engine)",
      "cat '$input' |\nfastx_uncollapser -c $idcol -v -o '$output'",
      """<param format="tabular" name="input" type="data" label="Tabular file" />
 		<param name="idcol" type="integer" value="1" label="Column with collapsed sequence identifier" />""",
@@ -178,7 +178,7 @@ TOOLS = [
      [({"input": "fastx_seqid_uncollapse1.psl", "idcol": "10"}, "fastx_seqid_uncollapse1.out")]),
 
     ("cshl_fastx_renamer_tpu", "Rename sequences",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfastx_renamer\n" + Q_SWITCH + "\n -n $TYPE -o '$output' -v",
      FASTX_INPUT + """
 		<param name="TYPE" type="select" label="Rename type">
@@ -189,7 +189,7 @@ TOOLS = [
      [({"input": "fastx_renamer1.fastq", "TYPE": "SEQ"}, "fastx_renamer1.out")]),
 
     ("cshl_fasta_nucleotides_changer_tpu", "RNA/DNA",
-     "converter (TPU engine)",
+     "converter (JAX engine)",
      "cat '$input' |\nfasta_nucleotide_changer $mode -v -o '$output'",
      """<param format="fasta" name="input" type="data" label="Library to convert" />
 		<param name="mode" type="select" label="Conversion direction">
@@ -201,7 +201,7 @@ TOOLS = [
       ({"input": "fasta_nuc_changer2.fasta", "mode": "-d"}, "fasta_nuc_changer2.out")]),
 
     ("cshl_fasta_formatter_tpu", "FASTA Width formatter",
-     "(TPU engine)",
+     "(JAX engine)",
      "cat '$input' |\nfasta_formatter -w $width -o '$output'",
      """<param format="fasta" name="input" type="data" label="Library to re-format" />
 		<param name="width" type="integer" value="0" label="New width for nucleotide strings (0 = single line)" />""",
@@ -210,14 +210,14 @@ TOOLS = [
       ({"input": "fasta_formatter1.fasta", "width": "60"}, "fasta_formatter2.out")]),
 
     ("cshl_fastx_quality_statistics_tpu", "Compute quality statistics",
-     "(TPU scatter-add reduction)",
+     "(scatter-add reduction)",
      "cat '$input' |\nfastx_quality_stats\n" + Q_SWITCH + "\n -o '$output'",
      '<param format="fastqsanger,fastq,fasta" name="input" type="data" label="Library to analyse" />',
      "tabular",
      [({"input": "fastq_stats1.fastq"}, "fastq_stats1.out")]),
 
     ("cshl_fastx_quality_statistics_ng_tpu", "Compute quality statistics",
-     "(improved) (TPU scatter-add reduction)",
+     "(improved) (scatter-add reduction)",
      "cat '$input' |\nfastx_quality_stats\n" + Q_SWITCH + "\n -N -o '$output'",
      '<param format="fasta,fastq,fastqsanger" name="input" type="data" label="Library to analyse" />',
      "tabular",
@@ -260,7 +260,7 @@ TOOLS = [
         "outfile"))]),
 
     ("cshl_fastx_barcode_splitter_tpu", "Barcode Splitter",
-     "(TPU hamming matcher)",
+     "(hamming matcher)",
      'fastx_barcode_splitter_galaxy_wrapper.py $BARCODE $input "$input.name" '
      '"$output.files_path" --mismatches $mismatches --partial $partial $EOL > $output',
      """<param format="txt" name="BARCODE" type="data" label="Barcodes to use" />
@@ -315,7 +315,7 @@ def render(tool):
 		%s
 	</outputs>
 %s	<help>
-Part of the TPU-native FASTX toolkit (fastx_toolkit_tpu); behavior matches
+Part of the JAX FASTX toolkit (fastx_toolkit_tpu); behavior matches
 the classic FASTX-Toolkit tool of the same name byte for byte.
 	</help>
 </tool>

@@ -97,185 +97,84 @@ def test_random_large_batch():
     _check(reads, adapter)
 
 
-def test_pallas_interpret_matches_jnp():
-    """The Pallas kernel (interpret mode on CPU) must be bit-identical to
-    the jnp engine."""
-    from fastx_toolkit_tpu.kernels.align_pallas import align_batch_pallas
-
-    rng = np.random.default_rng(7)
-    B, L = 128, 24
-    adapter = b"CCTTAAGG"
-    alpha = np.frombuffer(b"ACGTN", np.uint8)
-    bases = rng.choice(alpha, size=(B, L), p=[0.24, 0.24, 0.24, 0.24, 0.04])
-    lengths = rng.integers(4, L + 1, B).astype(np.int32)
-    cols = np.arange(L)
-    bases[cols[None, :] >= lengths[:, None]] = 0
-    ref = {k: np.asarray(v) for k, v in align.align_batch(bases, lengths, adapter).items()}
-    out = {
-        k: np.asarray(v)
-        for k, v in align_batch_pallas(
-            bases, lengths, adapter, tile_b=128, interpret=True
-        ).items()
-    }
-    for k in ref:
-        np.testing.assert_array_equal(ref[k], out[k], err_msg=k)
-
-
-@pytest.mark.slow
-def test_pallas_packed_field_bounds():
-    """Stress the bit-packed path-statistic planes (align_pallas P1/P2):
-    long reads (gap counts far beyond one byte), a long adapter (H_pad >
-    one sublane tile, deeper scan), and heavy N content."""
-    from fastx_toolkit_tpu.kernels.align_pallas import align_batch_pallas
-
-    rng = np.random.default_rng(11)
-    B, L = 128, 256
-    adapter = bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=64))
-    alpha = np.frombuffer(b"ACGTN", np.uint8)
-    bases = rng.choice(alpha, size=(B, L), p=[0.22, 0.22, 0.22, 0.22, 0.12])
-    lengths = rng.integers(0, L + 1, B).astype(np.int32)
-    cols = np.arange(L)
-    bases[cols[None, :] >= lengths[:, None]] = 0
-    ref = {k: np.asarray(v) for k, v in align.align_batch(bases, lengths, adapter).items()}
-    out = {
-        k: np.asarray(v)
-        for k, v in align_batch_pallas(
-            bases, lengths, adapter, tile_b=128, interpret=True
-        ).items()
-    }
-    for k in ref:
-        np.testing.assert_array_equal(ref[k], out[k], err_msg=k)
-
-
-def test_pallas_bounds_helper_and_errors():
-    from fastx_toolkit_tpu.kernels.align_pallas import (
-        align_batch_pallas,
-        pallas_bounds_ok,
-    )
-
-    # reference limits hold (fastx.h:33-35, fastx_clipper.cpp:40)
-    assert pallas_bounds_ok(25000, 100)
-    assert not pallas_bounds_ok(100, 256)  # adapter beyond the 8-bit fields
-    assert not pallas_bounds_ok(32700, 100)  # gap field overflow
-    with pytest.raises(ValueError):
-        align_batch_pallas(
-            np.zeros((128, 24), np.uint8), np.zeros(128, np.int32),
-            b"A" * 256, tile_b=128, interpret=True,
-        )
-    with pytest.raises(ValueError):  # B not a tile multiple
-        align_batch_pallas(
-            np.zeros((100, 24), np.uint8), np.zeros(100, np.int32),
-            b"CCTTAAGG", tile_b=128, interpret=True,
-        )
-
-
-def _packed_operands(bases, quals, adapter):
-    """bases [B, L] ACGTN ascii -> (b2w, nmw) in the packed kernel's
-    word layout (pipeline pack_batch2 + _words_T)."""
-    from fastx_toolkit_tpu.engine.pipeline import (
-        PipelineConfig,
-        _words_T,
-        pack_batch2,
-    )
-
-    B, L = bases.shape
-    cfg = PipelineConfig(adapter=adapter)
-    b_for_pack = np.where(bases == 0, ord("A"), bases).astype(np.uint8)
-    b2, planes = pack_batch2(b_for_pack, quals, cfg, n_plane=True)
-    L32 = -(-L // 32) * 32
-    b2w = np.asarray(_words_T(b2, L32 // 4))
-    nmw = np.asarray(_words_T(planes[:, 0], L32 // 8))
-    return b2w, nmw
-
-
-@pytest.mark.parametrize("adapter,L,n_frac", [  # noqa: E741
-    (b"CTGTAGGCACCATCAAT", 100, 0.05),          # headline shape
-    (b"CCTTAAGGCCTTAAGGCCTTAAGGCCTTAAG", 100, 0.05),  # H=31 field bound
-    (b"CTGTAGGCACCATCAAT", 511, 0.03),          # L at the 9-bit qs bound
-    (b"CCTTAAGG", 8, 0.2),                      # tiny reads
-    (b"CTGTAGGCACCATCAAT", 100, 0.0),           # N-free: provably-zero
-    # flags shortcut (the kernel wrapper runs the flag-free variant)
-])
-def test_p12_packed_kernel_matches_jnp(adapter, L, n_frac, monkeypatch):  # noqa: E741
-    """The single-payload-plane (P12) packed kernel — including the
-    derived gaps field and the tie-fragility flag — must be
-    bit-identical to the jnp engine on adversarial batches, and
-    identical to the two-plane kernel it replaces (FASTX_TPU_NO_P12)."""
-    from fastx_toolkit_tpu.kernels.align_pallas import (
-        align_batch_pallas_packed,
-        packed12_ok,
-    )
-
-    # a pre-set FASTX_TPU_NO_P12 would silently make the comparison
-    # below compare the two-plane kernel with itself
-    monkeypatch.delenv("FASTX_TPU_NO_P12", raising=False)
-    assert packed12_ok(L, len(adapter))
+def _adversarial_batch(adapter, L, n_frac, B=64):  # noqa: E741
+    """Reads with noisy adapters spiked into every third row, Ns at rate
+    ``n_frac`` and random lengths including 0 (zero-padded)."""
     rng = np.random.default_rng(L + len(adapter))
-    B = 64
     alpha = np.frombuffer(b"ACGTN", np.uint8)
     p = [(1 - n_frac) / 4] * 4 + [n_frac]
     bases = rng.choice(alpha, size=(B, L), p=p)
-    for i in range(0, B, 3):  # spike noisy adapters for realistic hits
+    for i in range(0, B, 3):
         pos = int(rng.integers(0, max(1, L - len(adapter))))
         ad = bytearray(adapter)
         for _ in range(int(rng.integers(0, 3))):
             j = int(rng.integers(0, len(ad)))
             ad[j] = int(rng.choice(alpha[:4]))
-        bases[i, pos:pos + len(ad)] = np.frombuffer(
-            bytes(ad), np.uint8)[:L - pos]
+        bases[i, pos:pos + len(ad)] = np.frombuffer(bytes(ad), np.uint8)[:L - pos]
     lengths = rng.integers(0, L + 1, B).astype(np.int32)
-    cols = np.arange(L)
-    bases[cols[None, :] >= lengths[:, None]] = 0
-    quals = np.full((B, L), 30, np.int8)
-
-    ref = {k: np.asarray(v) for k, v in align.align_batch(
-        bases, lengths, adapter, tie_flag=True).items()}
-    b2w, nmw = _packed_operands(bases, quals, adapter)
-    if n_frac == 0.0:
-        # N-free batches ship no nm plane; with an ACGT adapter the
-        # wrapper takes the provably-zero-flags shortcut (flag-free
-        # kernel + synthesized flags) — the comparison below checks the
-        # jnp engine agrees the flags are all zero
-        nmw = None
-    got = {k: np.asarray(v) for k, v in align_batch_pallas_packed(
-        b2w, nmw, lengths, adapter, L=L, tile_b=B, interpret=True,
-        tie_flag=True).items()}
-    for k in FIELDS + ("tie_fragile",):
-        np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
-    if n_frac == 0.0:
-        assert not np.asarray(got["tie_fragile"]).any()
-
-    monkeypatch.setenv("FASTX_TPU_NO_P12", "1")
-    old = {k: np.asarray(v) for k, v in align_batch_pallas_packed(
-        b2w, nmw, lengths, adapter, L=L, tile_b=B, interpret=True,
-        tie_flag=True).items()}
-    monkeypatch.delenv("FASTX_TPU_NO_P12")
-    for k in FIELDS + ("tie_fragile",):
-        np.testing.assert_array_equal(old[k], got[k],
-                                      err_msg="P12 vs two-plane: " + k)
+    bases[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return bases, lengths
 
 
-def test_pallas_length0_padding_rows_are_inert():
-    """_align_dispatch pads tail batches with length-0 rows to reach the
-    tile size; those rows must not disturb the real rows' results."""
-    from fastx_toolkit_tpu.kernels.align_pallas import align_batch_pallas
+@pytest.mark.parametrize("tie_flag", [False, True])
+@pytest.mark.parametrize("adapter,L,n_frac", [  # noqa: E741
+    (b"CTGTAGGCACCATCAAT", 100, 0.05),          # headline shape
+    (b"CCTTAAGGCCTTAAGGCCTTAAGGCCTTAAG", 100, 0.05),  # 31-mer adapter
+    (b"CTGTAGGCACCATCAAT", 511, 0.03),          # long reads
+    (b"CCTTAAGG", 8, 0.2),                      # tiny reads
+    (b"CTGTAGGCACCATCAAT", 100, 0.0),           # N-free
+])
+def test_align_batch_matches_exact_oracle(adapter, L, n_frac, tie_flag):  # noqa: E741
+    """align_batch, with the tie flag on and off, against the exact
+    decimal oracle on adversarial batches (length-0 rows included).
+    Rows the tie flag leaves clear must also match the float32 oracle,
+    which transcribes the reference's own arithmetic; N-free reads with
+    an ACGT adapter have no neutral score, so none can be flagged."""
+    bases, lengths = _adversarial_batch(adapter, L, n_frac)
+    out = {k: np.asarray(v) for k, v in
+           align.align_batch(bases, lengths, adapter, tie_flag=tie_flag).items()}
+    assert ("tie_fragile" in out) == tie_flag
+    for i in np.flatnonzero(lengths):  # the oracle takes no empty read
+        r = bases[i, : lengths[i]].tobytes()
+        got = {k: int(out[k][i]) for k in FIELDS}
+        assert got == _oracle_fields(r, adapter, exact=True), (i, r)
+        if tie_flag and not out["tie_fragile"][i]:
+            assert got == _oracle_fields(r, adapter), (i, r)
+    if tie_flag and n_frac == 0.0:
+        assert not out["tie_fragile"].any()
 
+
+def test_length0_padding_rows_are_inert():
+    """Length-0 rows appended to a batch (how fixed-shape dispatches pad
+    their tails) must not disturb the real rows' results."""
     rng = np.random.default_rng(23)
     B, L = 100, 40
     adapter = b"CCTTAAGG"
-    alpha = np.frombuffer(b"ACGTN", np.uint8)
-    bases = rng.choice(alpha, size=(B, L))
+    bases = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(B, L))
     lengths = rng.integers(1, L + 1, B).astype(np.int32)
-    cols = np.arange(L)
-    bases[cols[None, :] >= lengths[:, None]] = 0
-    pad_b = np.concatenate([bases, np.zeros((128 - B, L), np.uint8)])
-    pad_l = np.concatenate([lengths, np.zeros(128 - B, np.int32)])
-    out = {
-        k: np.asarray(v)[:B]
-        for k, v in align_batch_pallas(
-            pad_b, pad_l, adapter, tile_b=128, interpret=True
-        ).items()
-    }
-    ref = {k: np.asarray(v) for k, v in align.align_batch(bases, lengths, adapter).items()}
+    bases[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    pad_b = np.concatenate([bases, np.zeros((28, L), np.uint8)])
+    pad_l = np.concatenate([lengths, np.zeros(28, np.int32)])
+    out = {k: np.asarray(v)[:B] for k, v in
+           align.align_batch(pad_b, pad_l, adapter, tie_flag=True).items()}
+    ref = {k: np.asarray(v) for k, v in
+           align.align_batch(bases, lengths, adapter, tie_flag=True).items()}
     for k in ref:
         np.testing.assert_array_equal(ref[k], out[k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tie_flag", [False, True])
+def test_align_batch_on_gpu_matches_cpu(gpu_device, tie_flag):
+    """On a card: the DP's int32 results equal the CPU backend's."""
+    import jax
+
+    bases, lengths = _adversarial_batch(b"CTGTAGGCACCATCAAT", 100, 0.05, B=4096)
+    cpu = jax.devices("cpu")[0]
+    got = align.align_batch_jit(*jax.device_put((bases, lengths), gpu_device),
+                                adapter=b"CTGTAGGCACCATCAAT", tie_flag=tie_flag)
+    want = align.align_batch_jit(*jax.device_put((bases, lengths), cpu),
+                                 adapter=b"CTGTAGGCACCATCAAT", tie_flag=tie_flag)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(want[k]), np.asarray(got[k]),
+                                      err_msg=k)

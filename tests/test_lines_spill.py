@@ -127,55 +127,19 @@ def test_drainer_error_propagates_without_deadlock():
 
 
 def test_env_knob_change_invalidates_memoized_programs(monkeypatch):
-    """Trace-time env knobs (kernel selection/tuning) are baked into the
-    jitted programs LineEngines memoizes; toggling one mid-process must
-    rebuild them (round-5 review finding: a cached executable silently
-    ignored FASTX_TPU_NO_P12 set after the first call)."""
-    monkeypatch.delenv("FASTX_TPU_NO_PACKED_DECIDE", raising=False)
+    """Trace-time env knobs are baked into the jitted programs
+    LineEngines memoizes; toggling one mid-process must rebuild them (a
+    cached executable would silently ignore the new setting)."""
+    monkeypatch.delenv("FASTX_TPU_NO_TIE_FIX", raising=False)
     eng = LineEngines(CFG)
     a = eng.fn2(has_n=False)
     assert eng.fn2(has_n=False) is a  # memo stable while env is stable
-    monkeypatch.setenv("FASTX_TPU_NO_PACKED_DECIDE", "1")
+    assert eng.tie == bool(CFG.with_clip)
+    monkeypatch.setenv("FASTX_TPU_NO_TIE_FIX", "1")
     b = eng.fn2(has_n=False)
     assert b is not a  # knob change -> fresh trace
-    monkeypatch.delenv("FASTX_TPU_NO_PACKED_DECIDE")
+    assert not eng.tie  # the tie default is re-derived too
+    monkeypatch.delenv("FASTX_TPU_NO_TIE_FIX")
     c = eng.fn2(has_n=False)
     assert c is not b
-    # the tie default is re-derived too
-    assert eng.tie == (bool(CFG.with_clip))
-
-
-def test_packed_tile_override_validated(monkeypatch):
-    """FASTX_TPU_PACKED_TILE must not resurrect broken configurations:
-    0 (div-by-zero downstream), non-multiples of 1024 (Mosaic rejects
-    only on the real chip), or tiles past the VMEM budget."""
-    from fastx_toolkit_tpu.kernels.align_pallas import packed_tile_for
-
-    for bad in ("0", "512", "1000", "4096"):  # 4096 * H_pad 72 > 72K
-        monkeypatch.setenv("FASTX_TPU_PACKED_TILE", bad)
-        with pytest.raises(ValueError, match="FASTX_TPU_PACKED_TILE"):
-            packed_tile_for(72)
-    monkeypatch.setenv("FASTX_TPU_PACKED_TILE", "2048")
-    assert packed_tile_for(8) == 2048  # valid override honored
-    monkeypatch.delenv("FASTX_TPU_PACKED_TILE")
-    assert packed_tile_for(8) == 1024  # per-variant default restored
-
-
-def test_p12_unroll_override_validated(monkeypatch):
-    """FASTX_TPU_P12_UNROLL outside 1/2/4/8/16/32 would index the packed
-    operand rows out of bounds on-chip; reject it at dispatch."""
-    from fastx_toolkit_tpu.kernels.align_pallas import (
-        align_batch_pallas_packed,
-        packed12_ok,
-    )
-    import jax.numpy as jnp
-
-    adapter = b"CCTTAAGG"
-    L = 64
-    assert packed12_ok(L, len(adapter))
-    b2w = jnp.zeros((4, 8), jnp.int32)
-    lengths = jnp.full(8, L, jnp.int32)
-    monkeypatch.setenv("FASTX_TPU_P12_UNROLL", "256")
-    with pytest.raises(ValueError, match="FASTX_TPU_P12_UNROLL"):
-        align_batch_pallas_packed(b2w, None, lengths, adapter, L=L,
-                                  tile_b=8, interpret=True)
+    assert eng.tie == bool(CFG.with_clip)

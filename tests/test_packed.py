@@ -140,3 +140,83 @@ def test_pack_roundtrip_bases():
     np.testing.assert_array_equal(got_b, bases)
     lt = np.asarray(got_lt)[:, 0, : bases.shape[1]]
     np.testing.assert_array_equal(lt, quals < cfg.filter_q)
+
+
+ADAPTER = b"CTGTAGGCACCATCAAT"
+# BASELINE.json's config shapes (subsets of the headline chain)
+CONFIG_MATRIX = {
+    "headline": PipelineConfig(adapter=ADAPTER),
+    "config1": PipelineConfig(
+        adapter=ADAPTER, trim_last=80, with_filter=False, with_qtrim=False,
+        with_mask=False, with_clip=False, with_artifacts=False,
+        to_fasta_discard_n=True,
+    ),
+    "config2": PipelineConfig(adapter=ADAPTER, with_clip=False,
+                              with_artifacts=False),
+    "config4": PipelineConfig(
+        adapter=ADAPTER, with_filter=False, with_qtrim=False,
+        with_mask=False, clip_keep_n=False, clip_minlen=15,
+    ),
+    "artifacts_only": PipelineConfig(
+        adapter=ADAPTER, with_filter=False, with_qtrim=False,
+        with_mask=False, with_clip=False,
+    ),
+}
+
+
+def _adapter_chunk(rng, B, L, with_n: bool):  # noqa: E741
+    """Bench-like chunk: adapters spiked at random offsets, random
+    lengths (0 included), zero bases and qualities beyond each length."""
+    p = [0.24, 0.24, 0.24, 0.24, 0.04] if with_n else [0.25, 0.25, 0.25, 0.25]
+    alpha = np.frombuffer(b"ACGTN" if with_n else b"ACGT", np.uint8)
+    bases = rng.choice(alpha, size=(B, L), p=p)
+    pos = rng.integers(0, max(1, L - 5), B)
+    for j, ch in enumerate(ADAPTER):
+        m = (rng.random(B) < 0.35) & (pos + j < L)
+        bases[m, (pos + j)[m]] = ch
+    quals = rng.integers(2, 41, size=(B, L)).astype(np.int8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    beyond = np.arange(L)[None, :] >= lengths[:, None]
+    quals[beyond] = 0
+    bases[beyond] = 0
+    return bases, quals, lengths
+
+
+def _check_packed2_vs_unpacked(cfg, bases, quals, lengths, with_n):
+    ref_len, ref_keep, _ = decisions_pipeline(cfg)(
+        bases, quals, lengths, np.ones(len(lengths), np.int32)
+    )
+    from fastx_toolkit_tpu.engine.pipeline import pack_batch2
+
+    b2, planes = pack_batch2(bases, quals, cfg, n_plane=with_n)
+    fn = packed_decisions_pipeline(cfg, two_bit=True, has_n_plane=with_n)
+    got_len, got_keep, _ = fn(b2, planes, lengths.astype(np.int16))
+    np.testing.assert_array_equal(np.asarray(ref_keep), np.asarray(got_keep))
+    np.testing.assert_array_equal(np.asarray(ref_len), np.asarray(got_len))
+
+
+@pytest.mark.parametrize("cfg_name", sorted(CONFIG_MATRIX))
+@pytest.mark.parametrize("with_n", [False, True])
+def test_packed2_config_matrix_matches_unpacked(cfg_name, with_n):
+    """Every BASELINE config shape, with and without the N plane: the
+    2-bit packed decisions body decides exactly like the unpacked one."""
+    rng = np.random.default_rng(sorted(CONFIG_MATRIX).index(cfg_name) * 2 + with_n)
+    bases, quals, lengths = _adapter_chunk(rng, 256, 72, with_n)
+    _check_packed2_vs_unpacked(CONFIG_MATRIX[cfg_name], bases, quals,
+                               lengths, with_n)
+
+
+def test_packed2_trim_boundaries():
+    """Lengths around the plane-byte boundaries (8/16) through the
+    packed quality trimmer."""
+    rng = np.random.default_rng(7)
+    B, L = 256, 24  # noqa: E741
+    lengths = np.tile([0, 1, 7, 8, 9, 15, 16, 17, 23, 24, 3, 20, 24, 24, 24, 24],
+                      B // 16).astype(np.int32)
+    bases = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(B, L))
+    quals = rng.integers(2, 41, size=(B, L)).astype(np.int8)
+    beyond = np.arange(L)[None, :] >= lengths[:, None]
+    bases[beyond] = 0
+    quals[beyond] = 0
+    _check_packed2_vs_unpacked(CONFIG_MATRIX["config2"], bases, quals,
+                               lengths, False)

@@ -12,11 +12,9 @@ from fastx_toolkit_tpu.parallel import data_mesh, shard_batch, sharded_pipeline,
 
 from util import fixture
 
-# these tests exercise the 8-way sharded programs; on a real-hardware run
-# (FASTX_TPU_TEST_REAL=1) only the single physical chip is visible, so
-# they are skipped there — the virtual 8-device CPU mesh is their home
-# (conftest.py), and the driver's dryrun_multichip value-checks the same
-# programs
+# these tests exercise the 8-way sharded programs on the virtual 8-device
+# CPU mesh (conftest.py); chip_smoke.py --four value-checks the same
+# programs on four GPUs
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8,
     reason="needs 8 devices (virtual CPU mesh); real rig exposes 1 chip",

@@ -7,6 +7,7 @@ from fastx_toolkit_tpu.cli.common import CliContext, ExitWithStatus
 from fastx_toolkit_tpu.core.errors import FastxError
 
 TEST_DATA = "/root/reference/galaxy/test-data"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def fixture(name: str) -> bytes:
